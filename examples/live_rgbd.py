@@ -29,6 +29,8 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
+from multi_orb_slam.utils import compile_cache  # noqa: E402
+
 MAGIC = b"MOSL"
 END_TS = 0xFFFFFFFFFFFFFFFF
 
@@ -70,7 +72,7 @@ def serve(stream, slam, n_cams, h, w):
 
 def producer_main(port, n_frames=20):
     """Self-test producer: stream a synthetic sequence to the server."""
-    from multi_orb_slam_tpu.io import synthetic
+    from multi_orb_slam.io import synthetic
 
     seq = synthetic.make_sequence(n_frames=n_frames, height=240, width=320,
                                   n_points=2500)
@@ -87,6 +89,7 @@ def producer_main(port, n_frames=20):
 
 
 def main():
+    compile_cache.enable()
     ap = argparse.ArgumentParser()
     ap.add_argument("settings", nargs="?")
     ap.add_argument("--calibration")
@@ -136,7 +139,7 @@ def main():
 
 
 def _serve_header_and_track(stream, _unused, args):
-    from multi_orb_slam_tpu import system as system_mod
+    from multi_orb_slam import system as system_mod
 
     magic = _read_exact(stream, 4)
     assert magic == MAGIC, f"bad stream magic {magic!r}"
@@ -151,9 +154,9 @@ def _serve_header_and_track(stream, _unused, args):
     else:
         # selftest: defaults matching the synthetic producer
         import jax.numpy as jnp
-        from multi_orb_slam_tpu.config import SlamConfig
-        from multi_orb_slam_tpu.geometry import camera as cam_mod
-        from multi_orb_slam_tpu.ops import orb
+        from multi_orb_slam.config import SlamConfig
+        from multi_orb_slam.geometry import camera as cam_mod
+        from multi_orb_slam.ops import orb
         cfg = SlamConfig(n_cams=1, max_feat=512, width=w, height=h,
                          orb=orb.ORBConfig(n_features=512))
         calib = cam_mod.CameraParams(

@@ -27,8 +27,9 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from multi_orb_slam_tpu import system as system_mod  # noqa: E402
-from multi_orb_slam_tpu.io import tum  # noqa: E402
+from multi_orb_slam import system as system_mod  # noqa: E402
+from multi_orb_slam.utils import compile_cache  # noqa: E402
+from multi_orb_slam.io import tum  # noqa: E402
 
 
 def load_assoc_pairs(path):
@@ -45,6 +46,7 @@ def load_assoc_pairs(path):
 
 
 def main():
+    compile_cache.enable()
     ap = argparse.ArgumentParser()
     ap.add_argument("settings")
     ap.add_argument("sequence")
@@ -76,7 +78,7 @@ def main():
 
     native = None
     if args.native_loader and not dual:
-        from multi_orb_slam_tpu.io import native_loader
+        from multi_orb_slam.io import native_loader
         if native_loader.native_available():
             pairs = load_assoc_pairs(args.assoc1)
             items = [(f"{args.sequence}/{p1}", f"{args.sequence}/{p3}")

@@ -22,10 +22,12 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from multi_orb_slam_tpu import system as system_mod  # noqa: E402
+from multi_orb_slam import system as system_mod  # noqa: E402
+from multi_orb_slam.utils import compile_cache  # noqa: E402
 
 
 def main():
+    compile_cache.enable()
     ap = argparse.ArgumentParser()
     ap.add_argument("settings")
     ap.add_argument("sequence")

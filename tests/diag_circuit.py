@@ -5,10 +5,10 @@ Run: python -m pytest tests/diag_circuit.py -q -s
 import numpy as np
 import jax.numpy as jnp
 
-from multi_orb_slam_tpu import system as system_mod
-from multi_orb_slam_tpu.geometry import align, camera as cam_mod
-from multi_orb_slam_tpu.io import synthetic as syn
-from multi_orb_slam_tpu.placerec import database as db_mod
+from multi_orb_slam import system as system_mod
+from multi_orb_slam.geometry import align, camera as cam_mod
+from multi_orb_slam.io import synthetic as syn
+from multi_orb_slam.placerec import database as db_mod
 
 from test_circuit_e2e import NF, K, H, W, make_cfg, make_rig, circuit  # noqa
 
@@ -36,7 +36,7 @@ def test_diag(circuit):
     ate = float(align.ate_rmse(jnp.asarray(est), jnp.asarray(gt)))
     end_err = float(np.linalg.norm(est[-1] - gt[-1]))
     st = slam.tracker.map
-    from multi_orb_slam_tpu.mapping import map_state as ms
+    from multi_orb_slam.mapping import map_state as ms
     Wc = np.asarray(ms.covisibility(st, cam0_only=True))
     kv = np.asarray(st.kf_valid)
     fid_arr = np.asarray(st.kf_frame_id)

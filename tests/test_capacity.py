@@ -1,6 +1,6 @@
 """Capacity lifecycle: slot exhaustion is counted, relieved, and survivable.
 
-VERDICT round-1 weak point #8: `allocate_mp_slots` returned -1 silently on
+Originally `allocate_mp_slots` returned -1 silently on
 a full map.  Now exhaustion increments `n_alloc_failed`, and the mapping
 stage evicts the weakest points (`map_state.relieve_capacity`) when the
 store runs hot — the fixed-capacity answer to the reference's unbounded
@@ -10,12 +10,12 @@ store runs hot — the fixed-capacity answer to the reference's unbounded
 import numpy as np
 import jax.numpy as jnp
 
-from multi_orb_slam_tpu.config import SlamConfig
-from multi_orb_slam_tpu.frontend import tracking
-from multi_orb_slam_tpu.geometry import align, camera as cam_mod
-from multi_orb_slam_tpu.io import synthetic
-from multi_orb_slam_tpu.mapping import local_mapping, map_state as ms
-from multi_orb_slam_tpu.ops import orb
+from multi_orb_slam.config import SlamConfig
+from multi_orb_slam.frontend import tracking
+from multi_orb_slam.geometry import align, camera as cam_mod
+from multi_orb_slam.io import synthetic
+from multi_orb_slam.mapping import local_mapping, map_state as ms
+from multi_orb_slam.ops import orb
 
 
 def test_alloc_failure_counter():

@@ -6,7 +6,7 @@ rotation-heavy views; OtherFiles/calibration.txt rotates cam2 ~90 deg
 about Y): the camera rig walks a full circle looking OUTWARD at the
 surrounding walls, so every piece of structure leaves the field of view
 and the starting arc is only reachable again through place recognition.
-This defeated the round-2/3 front end (NOTES_ROUND2 #3): the capped
+This defeated an earlier front end: the capped
 local-point gather selected by slot order, starving the current view of
 map points once the map outgrew the cap.
 
@@ -20,13 +20,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from multi_orb_slam_tpu import system as system_mod
-from multi_orb_slam_tpu.config import SlamConfig
-from multi_orb_slam_tpu.geometry import align, camera as cam_mod, se3
-from multi_orb_slam_tpu.io import synthetic as syn
-from multi_orb_slam_tpu.ops import orb as orb_mod
-from multi_orb_slam_tpu.placerec import database as db_mod
-from multi_orb_slam_tpu.placerec import vocabulary as vocab_mod
+from multi_orb_slam import system as system_mod
+from multi_orb_slam.config import SlamConfig
+from multi_orb_slam.geometry import align, camera as cam_mod, se3
+from multi_orb_slam.io import synthetic as syn
+from multi_orb_slam.ops import orb as orb_mod
+from multi_orb_slam.placerec import database as db_mod
+from multi_orb_slam.placerec import vocabulary as vocab_mod
 
 NF = 240
 H, W = 240, 320

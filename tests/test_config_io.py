@@ -1,7 +1,7 @@
 import numpy as np
 
-from multi_orb_slam_tpu import system as system_mod
-from multi_orb_slam_tpu.io import config_io, synthetic
+from multi_orb_slam import system as system_mod
+from multi_orb_slam.io import config_io, synthetic
 
 
 class TestConfigIO:

@@ -6,18 +6,17 @@ frames carry quadratic depth noise, dropouts, exposure drift, shot noise,
 and motion blur.  `io.synthetic.SensorModel` injects all five; this test
 asserts the full pipeline (tracking + mapping) survives the committed
 default degradation model and holds a bounded ATE — so the synthetic
-acceptance numbers are earned on degraded input, not exact renders
-(VERDICT round-4 item 2).
+acceptance numbers are earned on degraded input, not exact renders.
 """
 
 import numpy as np
 import jax.numpy as jnp
 
-from multi_orb_slam_tpu import system as system_mod
-from multi_orb_slam_tpu.config import SlamConfig
-from multi_orb_slam_tpu.geometry import align, camera as cam_mod
-from multi_orb_slam_tpu.io import synthetic
-from multi_orb_slam_tpu.ops import orb
+from multi_orb_slam import system as system_mod
+from multi_orb_slam.config import SlamConfig
+from multi_orb_slam.geometry import align, camera as cam_mod
+from multi_orb_slam.io import synthetic
+from multi_orb_slam.ops import orb
 
 
 def _cfg():

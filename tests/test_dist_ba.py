@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh
 
-from multi_orb_slam_tpu.geometry import se3
-from multi_orb_slam_tpu.parallel import dist_ba
+from multi_orb_slam.geometry import se3
+from multi_orb_slam.parallel import dist_ba
 
 from test_local_ba import make_ba_problem
 

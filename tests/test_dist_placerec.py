@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh
 
-from multi_orb_slam_tpu.parallel import dist_placerec
-from multi_orb_slam_tpu.placerec import vocabulary as vocab_mod
+from multi_orb_slam.parallel import dist_placerec
+from multi_orb_slam.placerec import vocabulary as vocab_mod
 
 
 def make_db(K=32, B=64, n_words=5000, seed=0):

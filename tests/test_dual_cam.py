@@ -4,13 +4,13 @@
 import jax.numpy as jnp
 import numpy as np
 
-from multi_orb_slam_tpu import system as system_mod
-from multi_orb_slam_tpu.config import SlamConfig
-from multi_orb_slam_tpu.geometry import align, camera as cam_mod, se3
-from multi_orb_slam_tpu.io import synthetic
-from multi_orb_slam_tpu.mapping import local_mapping
-from multi_orb_slam_tpu.frontend import tracking
-from multi_orb_slam_tpu.ops import orb
+from multi_orb_slam import system as system_mod
+from multi_orb_slam.config import SlamConfig
+from multi_orb_slam.geometry import align, camera as cam_mod, se3
+from multi_orb_slam.io import synthetic
+from multi_orb_slam.mapping import local_mapping
+from multi_orb_slam.frontend import tracking
+from multi_orb_slam.ops import orb
 
 
 def dual_calib(angle=0.9):

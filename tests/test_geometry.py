@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from multi_orb_slam_tpu.geometry import se3, sim3, camera, align
+from multi_orb_slam.geometry import se3, sim3, camera, align
 
 
 def rand_rotations(key, n):

@@ -1,11 +1,11 @@
 import jax.numpy as jnp
 import numpy as np
 
-from multi_orb_slam_tpu.frontend import tracking
-from multi_orb_slam_tpu.geometry import align, se3
-from multi_orb_slam_tpu.io import synthetic
-from multi_orb_slam_tpu.mapping import local_mapping
-from multi_orb_slam_tpu.optim import global_ba
+from multi_orb_slam.frontend import tracking
+from multi_orb_slam.geometry import align, se3
+from multi_orb_slam.io import synthetic
+from multi_orb_slam.mapping import local_mapping
+from multi_orb_slam.optim import global_ba
 
 from test_tracking import small_calib, small_cfg
 
@@ -86,8 +86,8 @@ class TestAsyncGBAMerge:
         keyframes/points born during the solve are corrected through their
         spanning-tree parent / creating keyframe (the propagation of
         reference src/LoopClosing.cc:927-989)."""
-        from multi_orb_slam_tpu.loop.loop_closing import _merge_gba
-        from multi_orb_slam_tpu.mapping import map_state as ms
+        from multi_orb_slam.loop.loop_closing import _merge_gba
+        from multi_orb_slam.mapping import map_state as ms
 
         state = ms.make_empty(8, 1, 32, 64)
         # two launch-era keyframes (slots 0, 1) + one born during GBA (2)
@@ -155,8 +155,8 @@ class TestAsyncGBAMerge:
     def test_slot_recycling_guard(self):
         """A slot culled and reused during the solve must be treated as
         new, not overwritten with the stale GBA pose."""
-        from multi_orb_slam_tpu.loop.loop_closing import _merge_gba
-        from multi_orb_slam_tpu.mapping import map_state as ms
+        from multi_orb_slam.loop.loop_closing import _merge_gba
+        from multi_orb_slam.mapping import map_state as ms
 
         state = ms.make_empty(4, 1, 8, 16)
         T_new = jnp.asarray(se3.exp(jnp.asarray(

@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from multi_orb_slam_tpu.geometry import se3
-from multi_orb_slam_tpu.optim import local_ba
+from multi_orb_slam.geometry import se3
+from multi_orb_slam.optim import local_ba
 
 
 def make_ba_problem(

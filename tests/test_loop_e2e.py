@@ -12,13 +12,13 @@ covisibility-connected, exactly like the reference's connected-KF exclusion
 import numpy as np
 import jax.numpy as jnp
 
-from multi_orb_slam_tpu import system as system_mod
-from multi_orb_slam_tpu.config import SlamConfig
-from multi_orb_slam_tpu.geometry import align
-from multi_orb_slam_tpu.io import synthetic
-from multi_orb_slam_tpu.loop import loop_closing
-from multi_orb_slam_tpu.mapping import map_state as ms
-from multi_orb_slam_tpu.ops import orb
+from multi_orb_slam import system as system_mod
+from multi_orb_slam.config import SlamConfig
+from multi_orb_slam.geometry import align
+from multi_orb_slam.io import synthetic
+from multi_orb_slam.loop import loop_closing
+from multi_orb_slam.mapping import map_state as ms
+from multi_orb_slam.ops import orb
 
 from test_tracking import small_calib
 
@@ -90,9 +90,9 @@ class TestLoopE2E:
 
     def test_correct_loop_reduces_drift(self):
         """Drive _correct_loop directly on a synthetically drifted map."""
-        from multi_orb_slam_tpu.frontend import tracking
-        from multi_orb_slam_tpu.geometry import se3, sim3
-        from multi_orb_slam_tpu.mapping import local_mapping
+        from multi_orb_slam.frontend import tracking
+        from multi_orb_slam.geometry import se3, sim3
+        from multi_orb_slam.mapping import local_mapping
         from test_tracking import small_cfg
 
         calib = small_calib()

@@ -1,10 +1,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from multi_orb_slam_tpu.frontend import tracking
-from multi_orb_slam_tpu.geometry import align
-from multi_orb_slam_tpu.io import synthetic
-from multi_orb_slam_tpu.mapping import local_mapping
+from multi_orb_slam.frontend import tracking
+from multi_orb_slam.geometry import align
+from multi_orb_slam.io import synthetic
+from multi_orb_slam.mapping import local_mapping
 
 from test_tracking import small_calib, small_cfg
 
@@ -48,7 +48,7 @@ class TestLocalMappingIntegration:
         # erasure shrinking later support counts: after two culls every
         # point has 3 observers, so a third cull (support 2 < 3) must NOT
         # happen — the multi-victim scan must reproduce exactly that.
-        from multi_orb_slam_tpu.mapping import map_state as ms
+        from multi_orb_slam.mapping import map_state as ms
         cfg = small_cfg()
         state = ms.make_empty(8, 1, 16, 128)
         n_pts = 20
@@ -81,7 +81,7 @@ class TestLocalMappingIntegration:
         # the same close points but 3 of them at a much COARSER level (3),
         # so for the candidate's level-0 observations only level <= 1
         # observers count and nothing may be culled
-        from multi_orb_slam_tpu.mapping import map_state as ms
+        from multi_orb_slam.mapping import map_state as ms
         cfg = small_cfg()
         state = ms.make_empty(8, 1, 16, 128)
         n_pts = 20
@@ -113,7 +113,7 @@ class TestLocalMappingIntegration:
 
 class TestAdaptiveWindow:
     def test_covis_kf_count_matches_covisibility_row(self):
-        from multi_orb_slam_tpu.mapping import map_state as ms
+        from multi_orb_slam.mapping import map_state as ms
         rng = np.random.RandomState(3)
         state = ms.make_empty(8, 1, 32, 256)
         kf_mp = np.full((8, 1, 32), -1, np.int32)

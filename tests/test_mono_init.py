@@ -10,8 +10,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from multi_orb_slam_tpu.frontend import initializer
-from multi_orb_slam_tpu.geometry import se3
+from multi_orb_slam.frontend import initializer
+from multi_orb_slam.geometry import se3
 
 K = np.array([500.0, 500.0, 320.0, 240.0], np.float32)
 

@@ -3,8 +3,8 @@ import os
 import numpy as np
 import pytest
 
-from multi_orb_slam_tpu.io import native_loader, synthetic
-from multi_orb_slam_tpu.viz import drawers
+from multi_orb_slam.io import native_loader, synthetic
+from multi_orb_slam.viz import drawers
 
 
 class TestNativeLoader:
@@ -56,7 +56,7 @@ class TestViz:
     def test_draw_frame_and_map(self, tmp_path):
         import jax.numpy as jnp
 
-        from multi_orb_slam_tpu.frontend import tracking
+        from multi_orb_slam.frontend import tracking
         from test_tracking import small_calib, small_cfg
 
         calib = small_calib()

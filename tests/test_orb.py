@@ -1,8 +1,10 @@
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from multi_orb_slam_tpu.io import synthetic
-from multi_orb_slam_tpu.ops import hamming, orb
+from multi_orb_slam.io import synthetic
+from multi_orb_slam.ops import hamming, orb
 
 
 def render_test_image(seed=0):
@@ -104,3 +106,58 @@ class TestORB:
         f2 = orb.extract_orb(jnp.asarray(gray))
         np.testing.assert_array_equal(np.asarray(f1.desc), np.asarray(f2.desc))
         np.testing.assert_array_equal(np.asarray(f1.xy), np.asarray(f2.xy))
+
+
+class TestFastScoreReference:
+    # a plain shape, an odd pyramid level of 480x640 (level 6) and the
+    # coarsest level of KITTI's 376x1241
+    @pytest.mark.parametrize("shape", [(64, 96), (161, 214), (105, 346)])
+    def test_matches_numpy_segment_test(self, shape):
+        img = np.random.RandomState(sum(shape)).uniform(
+            0, 255, shape).astype(np.float32)
+        got = np.asarray(jax.jit(orb.fast_score)(jnp.asarray(img)))
+        want = orb.fast_score_numpy(img)
+        # the roll-based version wraps at the edges; the caller's border
+        # mask hides the outer 3 px, so compare inside it, exactly
+        np.testing.assert_array_equal(got[3:-3, 3:-3], want[3:-3, 3:-3])
+
+
+def test_gather_patches_matches_numpy_at_borders():
+    rng = np.random.RandomState(5)
+    L, H, W, side = 3, 60, 80, 45
+    canvas = rng.uniform(0, 255, (L, H, W)).astype(np.float32)
+    # corners, edges and the interior; windows at the borders shift inside
+    yc = np.array([0, 0, H - 1, H - 1, 30, 2, 57, 22, -4, H + 3], np.int32)
+    xc = np.array([0, W - 1, 0, W - 1, 40, 40, 3, 79, 50, -6], np.int32)
+    level = (np.arange(yc.size) % L).astype(np.int32)
+    got = np.asarray(orb.gather_patches(
+        jnp.asarray(canvas), jnp.asarray(level), jnp.asarray(yc),
+        jnp.asarray(xc), side))
+    for i, (l, y, x) in enumerate(zip(level, yc, xc)):
+        y0 = min(max(y - side // 2, 0), H - side)
+        x0 = min(max(x - side // 2, 0), W - side)
+        np.testing.assert_array_equal(got[i], canvas[l, y0:y0 + side,
+                                                     x0:x0 + side])
+
+
+@pytest.mark.gpu
+def test_extract_orb_on_gpu_matches_cpu(gpu):
+    """Nearly all of the GPU's keypoints are the CPU's (the pyramid's
+    resampling rounds differently, which can reorder near-tied corners);
+    on those, descriptor bits may flip only where the TF32 blur lands on a
+    comparison threshold."""
+    gray, _ = render_test_image()
+    cfg = orb.ORBConfig(n_features=1000)
+    fg = jax.device_get(orb.extract_orb(jax.device_put(gray, gpu), cfg))
+    fc = jax.device_get(orb.extract_orb(
+        jax.device_put(gray, jax.devices("cpu")[0]), cfg))
+
+    def keyed(f):
+        return {(int(l), float(x), float(y)): d for l, (x, y), d, v in zip(
+            f.level, f.xy, f.desc, f.valid) if v}
+
+    kg, kc = keyed(fg), keyed(fc)
+    common = sorted(set(kg) & set(kc))
+    assert len(common) >= 0.95 * max(len(kg), len(kc))
+    diff = np.stack([kg[k] ^ kc[k] for k in common])
+    assert np.unpackbits(diff.view(np.uint8)).mean() <= 0.01

@@ -2,10 +2,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from multi_orb_slam_tpu.geometry import se3, sim3
-from multi_orb_slam_tpu.loop import sim3_solver
-from multi_orb_slam_tpu.optim import pose_graph
-from multi_orb_slam_tpu.placerec import vocabulary as vocab_mod
+from multi_orb_slam.geometry import se3, sim3
+from multi_orb_slam.loop import sim3_solver
+from multi_orb_slam.optim import pose_graph
+from multi_orb_slam.placerec import vocabulary as vocab_mod
 
 
 def random_descs(rng, n):
@@ -166,7 +166,7 @@ class TestPoseGraph:
 
 class TestMultihostHelpers:
     def test_single_process_noop_and_mesh(self):
-        from multi_orb_slam_tpu.parallel import multihost
+        from multi_orb_slam.parallel import multihost
         multihost.initialize()  # no-op without coordinator env
         mesh = multihost.global_mesh()
         assert mesh.devices.size >= 1

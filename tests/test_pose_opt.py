@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from multi_orb_slam_tpu.geometry import se3
-from multi_orb_slam_tpu.optim import pose_opt
+from multi_orb_slam.geometry import se3
+from multi_orb_slam.optim import pose_opt
 
 
 def make_problem(seed=0, n=200, noise=0.5, n_outliers=0, n_cams=1, stereo=True):

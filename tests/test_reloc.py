@@ -2,11 +2,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from multi_orb_slam_tpu.geometry import se3
-from multi_orb_slam_tpu.loop import loop_closing
-from multi_orb_slam_tpu.reloc import pnp, relocalization
-from multi_orb_slam_tpu.io import synthetic
-from multi_orb_slam_tpu import system as system_mod
+from multi_orb_slam.geometry import se3
+from multi_orb_slam.loop import loop_closing
+from multi_orb_slam.reloc import pnp, relocalization
+from multi_orb_slam.io import synthetic
+from multi_orb_slam import system as system_mod
 
 from test_tracking import small_calib, small_cfg
 from test_system import make_system

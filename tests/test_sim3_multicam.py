@@ -12,9 +12,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from multi_orb_slam_tpu.geometry import camera as cam_mod, se3, sim3
-from multi_orb_slam_tpu.loop import sim3_solver
-from multi_orb_slam_tpu.optim import sim3_opt
+from multi_orb_slam.geometry import camera as cam_mod, se3, sim3
+from multi_orb_slam.loop import sim3_solver
+from multi_orb_slam.optim import sim3_opt
 
 K2 = jnp.asarray([[260.0, 260.0, 160.0, 120.0],
                   [260.0, 260.0, 160.0, 120.0]], jnp.float32)

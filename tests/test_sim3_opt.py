@@ -9,8 +9,8 @@ round-1 pipeline stopped at.
 import numpy as np
 import jax.numpy as jnp
 
-from multi_orb_slam_tpu.geometry import align, sim3, se3
-from multi_orb_slam_tpu.optim import sim3_opt
+from multi_orb_slam.geometry import align, sim3, se3
+from multi_orb_slam.optim import sim3_opt
 
 K0 = np.array([520.0, 520.0, 320.0, 240.0], np.float32)
 

@@ -1,10 +1,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from multi_orb_slam_tpu import system as system_mod
-from multi_orb_slam_tpu.frontend import frame as frame_mod, tracking
-from multi_orb_slam_tpu.geometry import align
-from multi_orb_slam_tpu.io import synthetic
+from multi_orb_slam import system as system_mod
+from multi_orb_slam.frontend import frame as frame_mod, tracking
+from multi_orb_slam.geometry import align
+from multi_orb_slam.io import synthetic
 
 from test_tracking import small_calib, small_cfg
 

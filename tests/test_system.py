@@ -3,10 +3,10 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from multi_orb_slam_tpu import system as system_mod
-from multi_orb_slam_tpu.geometry import align, camera as cam_mod
-from multi_orb_slam_tpu.io import synthetic, tum
-from multi_orb_slam_tpu.loop import loop_closing
+from multi_orb_slam import system as system_mod
+from multi_orb_slam.geometry import align, camera as cam_mod
+from multi_orb_slam.io import synthetic, tum
+from multi_orb_slam.loop import loop_closing
 
 from test_tracking import small_calib, small_cfg
 
@@ -101,7 +101,7 @@ class TestTumIO:
 
     def test_trajectory_roundtrip(self, tmp_path):
         rng = np.random.RandomState(0)
-        from multi_orb_slam_tpu.geometry import se3
+        from multi_orb_slam.geometry import se3
         poses = []
         for i in range(5):
             xi = jnp.asarray(rng.randn(6).astype(np.float32) * 0.3)

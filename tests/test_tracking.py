@@ -1,11 +1,11 @@
 import jax.numpy as jnp
 import numpy as np
 
-from multi_orb_slam_tpu.frontend import tracking
-from multi_orb_slam_tpu.geometry import align, camera as cam_mod
-from multi_orb_slam_tpu.io import synthetic
-from multi_orb_slam_tpu.mapping import map_state as ms
-from multi_orb_slam_tpu.ops import orb
+from multi_orb_slam.frontend import tracking
+from multi_orb_slam.geometry import align, camera as cam_mod
+from multi_orb_slam.io import synthetic
+from multi_orb_slam.mapping import map_state as ms
+from multi_orb_slam.ops import orb
 
 
 def small_cfg(n_cams=1):

@@ -1,10 +1,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from multi_orb_slam_tpu.frontend import tracking
-from multi_orb_slam_tpu.geometry import align
-from multi_orb_slam_tpu.io import synthetic
-from multi_orb_slam_tpu.mapping import fusion, local_mapping, map_state as ms, triangulation
+from multi_orb_slam.frontend import tracking
+from multi_orb_slam.geometry import align
+from multi_orb_slam.io import synthetic
+from multi_orb_slam.mapping import fusion, local_mapping, map_state as ms, triangulation
 
 from test_tracking import small_calib, small_cfg
 

@@ -19,13 +19,13 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 
-from multi_orb_slam_tpu import system as system_mod
-from multi_orb_slam_tpu.config import SlamConfig
-from multi_orb_slam_tpu.geometry import align, camera as cam_mod, se3
-from multi_orb_slam_tpu.io import synthetic as syn
-from multi_orb_slam_tpu.ops import orb as orb_mod
-from multi_orb_slam_tpu.placerec import database as db_mod
-from multi_orb_slam_tpu.placerec import vocabulary as vocab_mod
+from multi_orb_slam import system as system_mod
+from multi_orb_slam.config import SlamConfig
+from multi_orb_slam.geometry import align, camera as cam_mod, se3
+from multi_orb_slam.io import synthetic as syn
+from multi_orb_slam.ops import orb as orb_mod
+from multi_orb_slam.placerec import database as db_mod
+from multi_orb_slam.placerec import vocabulary as vocab_mod
 
 NF = int(sys.argv[1]) if len(sys.argv) > 1 else 240
 DRIFT = float(sys.argv[2]) if len(sys.argv) > 2 else 0.05

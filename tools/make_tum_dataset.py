@@ -17,8 +17,7 @@ Usage: python tools/make_tum_dataset.py OUTDIR [n_frames] [trajectory]
 --degrade applies the committed five-effect Kinect sensor model
 (io/synthetic.SensorModel defaults: quadratic depth noise, dropouts,
 exposure drift, shot noise, motion blur) to the rendered frames before
-export, so BOTH systems can be baselined on degraded input
-(VERDICT round-4 item 2).
+export, so BOTH systems can be baselined on degraded input.
 """
 
 import os
@@ -106,8 +105,8 @@ Viewer.ViewpointF: 500
 def main():
     import cv2
 
-    from multi_orb_slam_tpu.geometry import se3 as _  # noqa: F401 (repo path check)
-    from multi_orb_slam_tpu.io import synthetic
+    from multi_orb_slam.geometry import se3 as _  # noqa: F401 (repo path check)
+    from multi_orb_slam.io import synthetic
 
     args = [a for a in sys.argv[1:] if a != "--degrade"]
     degrade = "--degrade" in sys.argv[1:]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Loop-candidate recall/precision over MULTIPLE scenes (moving revisits).
 
-VERDICT round-1 item 6 / round-3 item 5's acceptance measurement: place
+The acceptance measurement for place recognition on moving revisits: place
 recognition evaluated on long sequences with a >= 10^4-word vocabulary and
 the sparse database, across >= 2 distinct scene geometries so the
 detection thresholds (the 1.3x-minScore forwarding floor was calibrated on
@@ -24,7 +24,7 @@ covisibility + age exclusion, group accumulation) and scores:
 Run: [JAX_PLATFORMS=cpu] python tools/measure_placerec_recall.py \
         [corridor_frames] [circuit_frames]
 
-Measures BOTH detection configurations per scene (VERDICT round-4 item 3):
+Measures BOTH detection configurations per scene:
 the consistency-earned score slack (loop_closing.MAX_RELAX_STREAK > 0,
 0.75x minScore for chain-connected candidates) ON and OFF, quantifying the
 slack's recall/precision delta.
@@ -43,22 +43,19 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if os.environ.get("JAX_PLATFORMS", "") == "cpu" or True:
-    import jax
-    import jax.extend.backend
-    jax.config.update("jax_platforms", "cpu")
-    jax.extend.backend.clear_backends()
+# recall and precision are platform-independent: measured on the CPU
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 
-from multi_orb_slam_tpu import system as system_mod  # noqa: E402
-from multi_orb_slam_tpu.config import SlamConfig  # noqa: E402
-from multi_orb_slam_tpu.geometry import camera as cam_mod  # noqa: E402
-from multi_orb_slam_tpu.io import synthetic as syn  # noqa: E402
-from multi_orb_slam_tpu.mapping import map_state as ms  # noqa: E402
-from multi_orb_slam_tpu.ops import orb as orb_mod  # noqa: E402
-from multi_orb_slam_tpu.placerec import database as db_mod  # noqa: E402
-from multi_orb_slam_tpu.placerec import vocabulary as vocab_mod  # noqa: E402
+from multi_orb_slam import system as system_mod  # noqa: E402
+from multi_orb_slam.config import SlamConfig  # noqa: E402
+from multi_orb_slam.geometry import camera as cam_mod  # noqa: E402
+from multi_orb_slam.io import synthetic as syn  # noqa: E402
+from multi_orb_slam.mapping import map_state as ms  # noqa: E402
+from multi_orb_slam.ops import orb as orb_mod  # noqa: E402
+from multi_orb_slam.placerec import database as db_mod  # noqa: E402
+from multi_orb_slam.placerec import vocabulary as vocab_mod  # noqa: E402
 
 H, W = 240, 320
 K = np.array([260.0, 260.0, 160.0, 120.0], np.float32)
@@ -117,7 +114,7 @@ def make_circuit_sequence(nf):
     collapse to meters of drift here and their "revisits" never track,
     which measures tracking failure, not place recognition.
     """
-    from multi_orb_slam_tpu.geometry import se3
+    from multi_orb_slam.geometry import se3
     import jax.numpy as jnp2
     Ry = se3.so3_exp(jnp2.asarray([0.0, np.pi / 2, 0.0]))
     T_rc1 = (jnp2.eye(4).at[:3, :3].set(Ry)
@@ -166,7 +163,7 @@ def run_scene(name, frames, poses, radius=1.0, slack=True, T_rc=None):
         dist=jnp.zeros((n_cams, 5)),
         T_rc=(jnp.eye(4)[None] if T_rc is None else jnp.asarray(T_rc)),
         bf=jnp.asarray(20.0), width=W, height=H)
-    from multi_orb_slam_tpu.loop import loop_closing as lc_mod
+    from multi_orb_slam.loop import loop_closing as lc_mod
     lc_mod.MAX_RELAX_STREAK = 3 if slack else 0
     slam = system_mod.System(
         calib=calib, cfg=cfg,
